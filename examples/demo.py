@@ -1,25 +1,17 @@
-"""End-to-end tour of the TPU-native periodic Schur library.
+"""End-to-end tour of the periodic Schur library.
 
-Run:  python examples/demo.py          (pin CPU for exact f64: see below)
+Run:  python examples/demo.py   (on JAX's default device: CPU or GPU)
 """
 import os
 import sys
+import tempfile
 
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 
-import periodicschurdecompositions_jl_tpu as psd
-
-# exact float64 on CPU; drop this to run on the TPU chip (see README for the
-# platform accuracy notes)
-try:
-    jax.config.update("jax_default_device", jax.devices("cpu")[0])
-except RuntimeError:
-    pass
+import periodicschurdecompositions_jax as psd
 
 rng = np.random.default_rng(42)
 p, n = 6, 24
@@ -70,16 +62,17 @@ print(f"partial_pschur: N={N} matrix-free; converged "
 print("  leading |values|:", np.round(np.abs(np.asarray(ps.values))[:4], 4))
 
 # --- checkpoint round-trip ---------------------------------------------------
-psd.save_decomposition("/tmp/psd_demo.npz", P2)
-P3 = psd.load_decomposition("/tmp/psd_demo.npz")
+path = os.path.join(tempfile.mkdtemp(), "psd_demo.npz")
+psd.save_decomposition(path, P2)
+P3 = psd.load_decomposition(path)
 print("save/load round-trip:",
       bool(np.allclose(np.asarray(P2.Ts), np.asarray(P3.Ts))))
 
-# --- round-2 features --------------------------------------------------------
-# split-complex backend: complex problems on a chip with no complex dtype
+# --- more features -----------------------------------------------------------
+# split-complex backend: the QZ iteration on (re, im) float64 pairs
 Ac = jnp.asarray(rng.standard_normal((3, 8, 8)) +
                  1j * rng.standard_normal((3, 8, 8)))
-Pc = psd.pschur(Ac, "R", backend="split")   # "auto" picks this off-CPU
+Pc = psd.pschur(Ac, "R", backend="split")   # "auto" runs complex128
 okc, _ = psd.check_psd(Pc, np.asarray(Ac))
 print(f"split-complex backend: verified={okc}")
 
@@ -89,7 +82,7 @@ print("aggressive deflation: verified=",
       psd.check_psd(Gagg, np.asarray(B))[0])
 
 # native C++ host backend (exact f64; also the bench baseline)
-from periodicschurdecompositions_jl_tpu import native
+from periodicschurdecompositions_jax import native
 if native.available():
     Tn, Zn, wr, wi = native.pschur_real_cpu(np.asarray(A))
     wn = np.sort(np.abs(wr + 1j * wi))
@@ -102,7 +95,6 @@ psd.setverbosity(1)
 _ = psd.pschur(A, "R", want_t=False, want_z=False)
 psd.setverbosity(0)
 
-# --- round-4 features --------------------------------------------------------
 # arbitrary-precision host path (the reference's BigFloat analogue)
 from mpmath import mp
 Pm = psd.pschur_mp(np.asarray(A)[:2, :6, :6], dps=40)

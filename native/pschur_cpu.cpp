@@ -4,13 +4,13 @@
 // Francis double-shift periodic QR iteration (MB03WD shape, reference
 // :322-1096).  Scalar sequential C++ — the honest "what a good CPU
 // implementation of the reference's algorithm does" baseline that bench.py
-// times against the TPU pipeline, and a fast exact float64 host backend.
+// times against the JAX pipeline, and a fast exact float64 host backend.
 //
 // This is an independent rewrite of the same algorithm the JAX cores in
-// ../periodicschurdecompositions_jl_tpu/ops/{hessenberg,pqr_real}.py
+// ../periodicschurdecompositions_jax/ops/{hessenberg,pqr_real}.py
 // implement (no code from /root/reference is copied); the scalar control
 // flow (shrinking windows, early exits) is the natural CPU formulation that
-// the TPU cores replace with masked static-shape sweeps.
+// the JAX cores replace with masked static-shape sweeps.
 //
 // Layout: row-major n x n matrices, p of them contiguous: A[f][r][c] =
 // A[(size_t)f*n*n + (size_t)r*n + c].
@@ -670,7 +670,7 @@ int pqr_real(int p, int n, double* H, double* Z, double* wr, double* wi,
 // Complex single-shift periodic QZ (MB03BZ shape) for NONSINGULAR windows.
 //
 // Independent C++ rewrite of the algorithm the JAX core
-// ../periodicschurdecompositions_jl_tpu/ops/pqz_complex.py implements
+// ../periodicschurdecompositions_jax/ops/pqz_complex.py implements
 // (reference behavior: /root/reference/src/generalized.jl:166-931) for the
 // AED window analyses (ops/aed.py): input H[0] upper Hessenberg,
 // H[1..p-1] upper triangular, signature S[l] in {+1,-1}, S[0] = +1.
@@ -908,7 +908,7 @@ int pqz_complex(int p, int n, cd* H, const int* S, cd* Z, cd* alpha,
 // Real generalized periodic QZ (MB03BD scope) for NONSINGULAR windows.
 //
 // Independent C++ rewrite of the algorithm the JAX core
-// ../periodicschurdecompositions_jl_tpu/ops/pqz_real.py implements
+// ../periodicschurdecompositions_jax/ops/pqz_real.py implements
 // (reference behavior: /root/reference/src/rgeneralized.jl:49-1083) for the
 // AED window analyses (ops/aed.py real-generalized variant): input H[0]
 // upper Hessenberg, H[1..p-1] upper triangular, signature S[l] in {+1,-1},

@@ -8,14 +8,10 @@ the plain core.
 import numpy as np
 import jax.numpy as jnp
 
-from periodicschurdecompositions_jl_tpu.config import AlgoConfig
-from periodicschurdecompositions_jl_tpu.ops import ff
-from periodicschurdecompositions_jl_tpu.ops.aed import (aed_analyze,
-                                                        aed_apply_ff)
-from periodicschurdecompositions_jl_tpu.ops.hessenberg import \
-    phessenberg_core
-from periodicschurdecompositions_jl_tpu.ops.pqr_ff import (
-    pqr_real_core_ff, pqr_real_core_ff_chunked)
+import pytest
+
+from periodicschurdecompositions_jax.config import AlgoConfig
+from periodicschurdecompositions_jax.ops.aed import aed_analyze
 
 EPS = np.finfo(np.float64).eps
 
@@ -75,7 +71,7 @@ def test_aed_partial_deflation_structure(rng):
     # decouple the trailing block and make it already-quasi-triangular by
     # construction (a tiny converged subproblem's Schur form)
     sub = _window(rng, p, conv)
-    from periodicschurdecompositions_jl_tpu.ops.pqr_real import pqr_real_core
+    from periodicschurdecompositions_jax.ops.pqr_real import pqr_real_core
     T, Z, wr, wi, ok = pqr_real_core(jnp.asarray(sub), want_z=False)
     assert bool(ok)
     Hwin[:, u0:, u0:] = np.asarray(T)
@@ -108,79 +104,6 @@ def test_aed_partial_deflation_structure(rng):
             1.0, np.abs(Hwin[l]).max()) + 2 * tol
 
 
-def test_aed_apply_ff_matches_host(rng):
-    """The ds device application must agree with the f64 host transform."""
-    p, n, w, s = 2, 16, 6, 7
-    N = n + 1
-    H = np.zeros((p, N, N))
-    H[:, :n, :n] = _window(rng, p, n)
-    ZT = np.zeros((p, N, N))
-    ZT[:, :n, :n] = np.broadcast_to(np.eye(n), (p, n, n))
-    q = [np.linalg.qr(rng.standard_normal((w, w)))[0] for _ in range(p)]
-    Zt = np.stack(q)
-    Wf = np.stack([rng.standard_normal((w, w)) for _ in range(p)])
-    sp = rng.standard_normal(w)
-    Hf = ff.from_f64(jnp.asarray(H))
-    Zf = ff.from_f64(jnp.asarray(ZT))
-    Hh, Hl, Zh, Zl = aed_apply_ff(Hf.hi, Hf.lo, Zf.hi, Zf.lo,
-                                  jnp.asarray(Zt), jnp.asarray(Wf),
-                                  jnp.asarray(sp), jnp.int32(s),
-                                  want_z=True)
-    got = np.asarray(Hh, np.float64) + np.asarray(Hl, np.float64)
-    gzt = np.asarray(Zh, np.float64) + np.asarray(Zl, np.float64)
-    for l in range(p):
-        ref = H[l].copy()
-        ref[s:s + w, :] = Zt[l].T @ ref[s:s + w, :]
-        ref[:, s:s + w] = ref[:, s:s + w] @ Zt[(l + 1) % p]
-        ref[s:s + w, s:s + w] = Wf[l]
-        if l == 0:
-            ref[s:s + w, s - 1] = sp
-        assert np.abs(got[l] - ref).max() < 1e-13 * max(
-            1.0, np.abs(ref).max()), l
-        zref = ZT[l].copy()
-        zref[s:s + w, :] = Zt[l].T @ zref[s:s + w, :]
-        assert np.abs(gzt[l] - zref).max() < 1e-13
-
-
-def test_chunked_aed_end_to_end(rng):
-    """Chunked driver with AED: same eigenvalues and contract-grade
-    backward error as the plain core, and AED actually fires."""
-    p, n = 3, 48
-    A = rng.standard_normal((p, n, n))
-    H64, Q64 = phessenberg_core(jnp.asarray(A), want_q=True)
-    Hff = ff.from_f64(jnp.asarray(np.asarray(H64)))
-    QTff = ff.from_f64(jnp.asarray(np.swapaxes(np.asarray(Q64), 1, 2)))
-    cfg = AlgoConfig(aed=True, aed_window=12, aed_interval=8)
-    import periodicschurdecompositions_jl_tpu.ops.aed as aed_mod
-    defl0 = aed_mod.stats["deflated"]
-    out = pqr_real_core_ff_chunked(Hff.hi, Hff.lo, QTff.hi, QTff.lo,
-                                   want_z=True, interpret=True, cfg=cfg,
-                                   chunk_iters=8)
-    assert aed_mod.stats["deflated"] > defl0, "AED never fired"
-    T = np.asarray(out[0], np.float64) + np.asarray(out[1], np.float64)
-    Z = np.swapaxes(np.asarray(out[2], np.float64) +
-                    np.asarray(out[3], np.float64), 1, 2)
-    wr = np.asarray(out[4], np.float64) + np.asarray(out[5], np.float64)
-    wi = np.asarray(out[6], np.float64) + np.asarray(out[7], np.float64)
-    assert bool(out[8])
-    # backward error (ds contract)
-    scale = np.abs(A).max()
-    for l in range(p):
-        Ax = Z[l] @ T[l] @ Z[(l + 1) % p].T
-        assert np.abs(Ax - A[l]).max() < 1e-12 * scale, l
-    # Z orthogonality
-    for l in range(p):
-        assert np.abs(Z[l] @ Z[l].T - np.eye(n)).max() < 1e-12
-    # eigenvalues vs the plain (non-AED) core
-    out0 = pqr_real_core_ff(Hff.hi, Hff.lo, QTff.hi, QTff.lo,
-                            want_z=False, interpret=True)
-    wr0 = np.asarray(out0[4], np.float64) + np.asarray(out0[5], np.float64)
-    wi0 = np.asarray(out0[6], np.float64) + np.asarray(out0[7], np.float64)
-    w1 = np.sort_complex(wr + 1j * wi)
-    w0 = np.sort_complex(wr0 + 1j * wi0)
-    assert np.abs(w1 - w0).max() < 1e-9 * max(1.0, np.abs(w0).max())
-
-
 # ---------------------------------------------------------------------------
 # complex / generalized variant
 
@@ -195,7 +118,7 @@ def _cwindow(rng, p, w):
 def test_aed_analyze_cx_tiny_coupling(rng):
     """Complex/generalized window with ~zero coupling: everything
     deflates; reconstruction respects the signature sides."""
-    from periodicschurdecompositions_jl_tpu.ops.aed import aed_analyze_cx
+    from periodicschurdecompositions_jax.ops.aed import aed_analyze_cx
     p, w = 3, 8
     S = (True, False, True)
     Hwin = _cwindow(rng, p, w)
@@ -225,72 +148,14 @@ def test_aed_analyze_cx_tiny_coupling(rng):
         rest.pop(j)
 
 
-def test_chunked_aed_cx_end_to_end(rng):
-    """ds complex chunked driver with AED: contract-grade residual and
-    eigenvalue agreement with the exact complex128 core; AED fires."""
-    from periodicschurdecompositions_jl_tpu.ops.pqz_complex_ff import (
-        phessenberg_signed_core_cxff, pqz_complex_core_ff_chunked)
-    from periodicschurdecompositions_jl_tpu.ops.pqz_complex import (
-        pqz_complex_core)
-    from periodicschurdecompositions_jl_tpu.ops.hessenberg import (
-        phessenberg_signed_core)
-    import periodicschurdecompositions_jl_tpu.ops.aed as aed_mod
-    p, n = 2, 36
-    S = (True, False)
-    A = rng.standard_normal((p, n, n)) + 1j * rng.standard_normal((p, n, n))
-
-    def _split(x):
-        x = jnp.asarray(x)
-        hi = x.astype(jnp.float32)
-        lo = (x - hi.astype(jnp.float64)).astype(jnp.float32)
-        return hi, lo
-
-    rhi, rlo = _split(A.real)
-    ihi, ilo = _split(A.imag)
-    out = phessenberg_signed_core_cxff(rhi, rlo, ihi, ilo, S, want_q=True)
-    Hrehi, Hrelo, Himhi, Himlo = out[:4]
-    Z4 = out[4:]
-    cfg = AlgoConfig(aed=True, aed_window=10, aed_interval=8)
-    defl0 = aed_mod.stats["deflated"]
-    res = pqz_complex_core_ff_chunked(
-        Hrehi, Hrelo, Himhi, Himlo, S, Z4, want_z=True, maxitfac=40,
-        chunk_iters=8, cfg=cfg)
-    assert aed_mod.stats["deflated"] > defl0, "complex AED never fired"
-    (Trehi, Trelo, Timhi, Timlo, Zrehi, Zrelo, Zimhi, Zimlo,
-     alre, alim, be, sc, ok) = res[:13]
-    assert bool(ok)
-    T = (np.asarray(Trehi, np.float64) + np.asarray(Trelo, np.float64)) + \
-        1j * (np.asarray(Timhi, np.float64) + np.asarray(Timlo, np.float64))
-    Z = (np.asarray(Zrehi, np.float64) + np.asarray(Zrelo, np.float64)) + \
-        1j * (np.asarray(Zimhi, np.float64) + np.asarray(Zimlo, np.float64))
-    scale = np.abs(A).max()
-    for l in range(p):
-        ln = (l + 1) % p
-        if S[l]:
-            Ax = Z[l] @ T[l] @ Z[ln].conj().T
-        else:
-            Ax = Z[ln] @ T[l] @ Z[l].conj().T
-        assert np.abs(Ax - A[l]).max() < 1e-12 * scale, l
-    # eigenvalues vs the exact complex128 pipeline
-    H64, Q64 = phessenberg_signed_core(jnp.asarray(A), S, want_q=False)
-    _, _, al0, be0, sc0, ok0 = pqz_complex_core(H64, S, want_z=False)
-    assert bool(ok0)
-    v0 = np.sort_complex(np.asarray(al0) / np.asarray(be0) *
-                         np.exp2(np.asarray(sc0).astype(np.float64)))
-    al = np.asarray(alre, np.float64) + 1j * np.asarray(alim, np.float64)
-    v1 = np.sort_complex(al / np.asarray(be, np.float64) *
-                         np.exp2(np.asarray(sc).astype(np.float64)))
-    assert np.abs(v1 - v0).max() < 1e-9 * max(1.0, np.abs(v0).max())
-
-
 def test_chunked_aed_rg_end_to_end(rng):
     """Real generalized chunked driver with AED: residual + eigenvalue
     agreement with the plain core; AED fires."""
-    from periodicschurdecompositions_jl_tpu.ops.hessenberg import (
+    from periodicschurdecompositions_jax.ops.hessenberg import (
         phessenberg_signed_core)
-    from periodicschurdecompositions_jl_tpu.ops.pqz_real import (
+    from periodicschurdecompositions_jax.ops.pqz_real import (
         pqz_real_gen_core, pqz_real_gen_core_chunked)
-    import periodicschurdecompositions_jl_tpu.ops.aed as aed_mod
+    import periodicschurdecompositions_jax.ops.aed as aed_mod
     p, n = 3, 36
     S = (True, False, True)
     A = rng.standard_normal((p, n, n))
@@ -332,7 +197,7 @@ def test_aed_analyze_randomized_invariants():
         # plant a converged trailing block half the time
         if seed % 2 == 0:
             conv = 4
-            from periodicschurdecompositions_jl_tpu.ops.pqr_real import (
+            from periodicschurdecompositions_jax.ops.pqr_real import (
                 pqr_real_core)
             sub = _window(rng, p, conv)
             T, _, _, _, ok = pqr_real_core(jnp.asarray(sub), want_z=False)
@@ -363,26 +228,24 @@ def test_aed_analyze_randomized_invariants():
                 assert np.abs(np.tril(Wf[l][:u, :u], -1)).max() == 0.0
 
 
-def test_aed_apply_rg_ff_matches_host(rng):
-    """The ds real-generalized application must agree with the f64 host
-    transform (signature-aware sides; Z plain)."""
-    from periodicschurdecompositions_jl_tpu.ops.aed import aed_apply_rg_ff
-    p, n, w, s = 2, 16, 6, 7
-    S = (True, False)
+@pytest.mark.parametrize("S,s", [((True, False), 7), ((True, True), 0),
+                                 ((True, False, False), 4)])
+def test_aed_apply_rg_matches_host(rng, S, s):
+    """The device application of real-generalized AED transforms agrees
+    with the f64 host transform (signature-aware sides; Z plain; no spike
+    write at the window head s == 0)."""
+    from periodicschurdecompositions_jax.ops.aed import aed_apply_rg
+    p, n, w = len(S), 16, 6
     H = _window(rng, p, n)
     Z = np.broadcast_to(np.eye(n), (p, n, n)).copy()
-    q = [np.linalg.qr(rng.standard_normal((w, w)))[0] for _ in range(p)]
-    Zt = np.stack(q)
+    Zt = np.stack([np.linalg.qr(rng.standard_normal((w, w)))[0]
+                   for _ in range(p)])
     Wf = np.stack([rng.standard_normal((w, w)) for _ in range(p)])
     sp = rng.standard_normal(w)
-    Hf = ff.from_f64(jnp.asarray(H))
-    Zf = ff.from_f64(jnp.asarray(Z))
-    Hh, Hl, Zh, Zl = aed_apply_rg_ff(Hf.hi, Hf.lo, Zf.hi, Zf.lo,
-                                     jnp.asarray(Zt), jnp.asarray(Wf),
-                                     jnp.asarray(sp), jnp.int32(s), S,
-                                     want_z=True)
-    got = np.asarray(Hh, np.float64) + np.asarray(Hl, np.float64)
-    gz = np.asarray(Zh, np.float64) + np.asarray(Zl, np.float64)
+    Hg, Zg = aed_apply_rg(jnp.asarray(H), jnp.asarray(Z), jnp.asarray(Zt),
+                          jnp.asarray(Wf), jnp.asarray(sp), jnp.int32(s), S,
+                          want_z=True)
+    Hg, Zg = np.asarray(Hg), np.asarray(Zg)
     for l in range(p):
         ln = (l + 1) % p
         ref = H[l].copy()
@@ -391,52 +254,10 @@ def test_aed_apply_rg_ff_matches_host(rng):
         ref[s:s + w, :] = Vl.T @ ref[s:s + w, :]
         ref[:, s:s + w] = ref[:, s:s + w] @ Vr
         ref[s:s + w, s:s + w] = Wf[l]
-        if l == 0:
+        if l == 0 and s >= 1:
             ref[s:s + w, s - 1] = sp
-        assert np.abs(got[l] - ref).max() < 1e-13 * max(
+        assert np.abs(Hg[l] - ref).max() < 1e-13 * max(
             1.0, np.abs(ref).max()), l
         zref = Z[l].copy()
         zref[:, s:s + w] = zref[:, s:s + w] @ Zt[l]
-        assert np.abs(gz[l] - zref).max() < 1e-13
-
-
-def test_chunked_aed_rg_ff_end_to_end(rng):
-    """ds real-generalized chunked driver with AED: contract-grade
-    residual and eigenvalue agreement with the f64 core; AED fires."""
-    import periodicschurdecompositions_jl_tpu.ops.aed as aed_mod
-    from periodicschurdecompositions_jl_tpu.ops.pqz_real import (
-        pschur_real_gen_pipeline)
-    p, n = 2, 36
-    S = (True, False)
-    A = rng.standard_normal((p, n, n))
-    for l in range(p):
-        A[l] += np.sign(np.linalg.det(A[l])) * 3 * np.eye(n)
-    cfg = AlgoConfig(aed=True, aed_window=10, aed_interval=8)
-    defl0 = aed_mod.stats["deflated"]
-    import periodicschurdecompositions_jl_tpu.ops.pqz_real_ff as rgff
-    from periodicschurdecompositions_jl_tpu.ops.pqz_complex_ff import (
-        phessenberg_signed_core_cxff)
-    Aff = ff.from_f64(jnp.asarray(A))
-    zi = jnp.zeros_like(Aff.hi)
-    red = phessenberg_signed_core_cxff(Aff.hi, Aff.lo, zi, zi, S,
-                                       want_q=True)
-    res = rgff.pqz_real_gen_core_ff_chunked(
-        red[0], red[1], S, (red[4], red[5]), want_z=True, maxitfac=120,
-        chunk_iters=8, cfg=cfg)
-    assert aed_mod.stats["deflated"] > defl0, "rg-ff AED never fired"
-    (Thi, Tlo, Zhi, Zlo, alr, ali, be, sc, ok) = res
-    assert bool(ok)
-    T = np.asarray(Thi, np.float64) + np.asarray(Tlo, np.float64)
-    Z = np.asarray(Zhi, np.float64) + np.asarray(Zlo, np.float64)
-    scale = np.abs(A).max()
-    for l in range(p):
-        ln = (l + 1) % p
-        Ax = (Z[l] @ T[l] @ Z[ln].T) if S[l] else (Z[ln] @ T[l] @ Z[l].T)
-        assert np.abs(Ax - A[l]).max() < 1e-12 * scale, l
-    # eigenvalues vs the f64 pipeline
-    Pref = pschur_real_gen_pipeline(jnp.asarray(A), S, "R")
-    v0 = np.sort_complex(np.asarray(Pref.values))
-    al = np.asarray(alr) + 1j * np.asarray(ali)
-    v1 = np.sort_complex(al / np.asarray(be, np.float64) *
-                         np.exp2(np.asarray(sc).astype(np.float64)))
-    assert np.abs(v1 - v0).max() < 1e-9 * max(1.0, np.abs(v0).max())
+        assert np.abs(Zg[l] - zref).max() < 1e-13

@@ -3,7 +3,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import periodicschurdecompositions_jl_tpu as psd
+import periodicschurdecompositions_jax as psd
 
 EPS = np.finfo(np.float64).eps
 
@@ -86,7 +86,7 @@ def test_expsplit_gpschur(rng):
 
 
 def test_maxitfac_failure(rng):
-    from periodicschurdecompositions_jl_tpu.types import ConvergenceFailure
+    from periodicschurdecompositions_jax.types import ConvergenceFailure
     A = rng.standard_normal((2, 12, 12))
     with pytest.raises(ConvergenceFailure):
         psd.pschur(jnp.asarray(A), maxitfac=1)
@@ -161,7 +161,7 @@ def test_want_t_false_real_generalized(rng):
 
 
 def test_want_t_false_split_backend(rng):
-    """Same contract through the split-complex (TPU-executable) core."""
+    """Same contract through the split-complex core."""
     p, n = 2, 8
     A = rng.standard_normal((p, n, n)) + 1j * rng.standard_normal((p, n, n))
     P_full = psd.pschur(jnp.asarray(A), "R", backend="split")
@@ -171,25 +171,3 @@ def test_want_t_false_split_backend(rng):
     v2 = np.sort_complex(np.asarray(P_fast.values))
     scale = max(np.abs(v1).max(), 1.0)
     assert np.abs(v1 - v2).max() < 1e-9 * scale
-
-
-def test_public_real_ff_backend(rng):
-    """psd.pschur(real A, backend='ff') drives the PRODUCTION ds pipeline
-    (the off-CPU default route) end to end: ds-grade residual, orthogonal
-    Z, eigenvalues matching the f64 route."""
-    import numpy as np
-    import jax.numpy as jnp
-    import periodicschurdecompositions_jl_tpu as psd
-    A = rng.standard_normal((2, 12, 12))
-    P = psd.pschur(jnp.asarray(A), "R", backend="ff")
-    ok, rep = psd.check_psd(P, A, qtol=500.0, tol=2000.0)
-    assert ok, rep
-    assert rep["residual_rel"] < 1e-12
-    P0 = psd.pschur(jnp.asarray(A), "R", backend="f64")
-    v1 = np.sort_complex(np.asarray(P.values))
-    v0 = np.sort_complex(np.asarray(P0.values))
-    assert np.abs(v1 - v0).max() < 1e-9 * max(1.0, np.abs(v0).max())
-    # L orientation through the same route
-    PL = psd.pschur(jnp.asarray(A), "L", backend="ff")
-    okL, repL = psd.check_psd(PL, A, qtol=500.0, tol=2000.0)
-    assert okL, repL

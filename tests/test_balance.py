@@ -7,7 +7,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from periodicschurdecompositions_jl_tpu.utils.balance import balance_pcycle
+from periodicschurdecompositions_jax.utils.balance import balance_pcycle
 
 
 def _graded_cycle(rng, p, n, grade=6.0):
@@ -59,7 +59,7 @@ def test_balance_equalizes_norms():
 def test_balance_improves_graded_eigenvalues(p):
     """pschur on the balanced cycle recovers small eigenvalues of a graded
     product more accurately; values are back-transform-free (similarity)."""
-    import periodicschurdecompositions_jl_tpu as psd
+    import periodicschurdecompositions_jax as psd
     rng = np.random.default_rng(11)
     n = 8
     A = _graded_cycle(rng, p, n, grade=7.0)

@@ -1,4 +1,4 @@
-"""The extra_rq subdiagonal-repair stage (reference :637-652) in BOTH cores.
+"""The extra_rq subdiagonal-repair stage (reference :637-652).
 
 The repair branch fires when the PRODUCT subdiagonal is negligible while
 H0's own subdiagonal entry is not (a tiny triangular diagonal kills the
@@ -10,10 +10,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from periodicschurdecompositions_jl_tpu.config import AlgoConfig
-from periodicschurdecompositions_jl_tpu.ops import ff
-from periodicschurdecompositions_jl_tpu.ops.pqr_real import pqr_real_core
-from periodicschurdecompositions_jl_tpu.ops.pqr_ff import pqr_real_core_ff
+from periodicschurdecompositions_jax.config import AlgoConfig
+from periodicschurdecompositions_jax.ops.pqr_real import pqr_real_core
 
 
 def _easy_input(rng, p, n, k, tiny):
@@ -29,34 +27,15 @@ def _easy_input(rng, p, n, k, tiny):
     return H
 
 
+@pytest.mark.parametrize("p,n,k,tiny", [(3, 10, 4, 1e-22), (2, 9, 1, 1e-18),
+                                        (5, 12, 8, 1e-20)])
 @pytest.mark.parametrize("extra_rq", [False, True])
-def test_extra_rq_f64_core(rng, extra_rq):
-    p, n, k = 3, 10, 4
-    H = _easy_input(rng, p, n, k, 1e-22)
+def test_extra_rq_f64_core(rng, extra_rq, p, n, k, tiny):
+    H = _easy_input(rng, p, n, k, tiny)
     cfg = AlgoConfig(extra_rq=extra_rq)
     T, Z, wr, wi, ok = pqr_real_core(jnp.asarray(H), want_z=True, cfg=cfg)
     assert bool(ok)
     T, Z = np.asarray(T), np.asarray(Z)
-    scale = np.abs(H).max()
-    for l in range(p):
-        r = np.abs(Z[l].T @ H[l] @ Z[(l + 1) % p] - T[l]).max()
-        assert r / scale < 1e-12, (l, r)
-        assert np.abs(Z[l].T @ Z[l] - np.eye(n)).max() < 1e-12
-
-
-@pytest.mark.parametrize("extra_rq", [False, True])
-def test_extra_rq_ds_core(rng, extra_rq):
-    p, n, k = 3, 10, 4
-    H = _easy_input(rng, p, n, k, 1e-18)
-    cfg = AlgoConfig(extra_rq=extra_rq)
-    Hf = ff.from_f64(jnp.asarray(H))
-    out = pqr_real_core_ff(Hf.hi, Hf.lo, want_z=True, cfg=cfg,
-                           interpret=True)
-    (Th, Tl, Zh, Zl, *_, ok) = out
-    assert bool(ok)
-    T = np.asarray(Th, np.float64) + np.asarray(Tl, np.float64)
-    ZT = np.asarray(Zh, np.float64) + np.asarray(Zl, np.float64)
-    Z = np.swapaxes(ZT, 1, 2)
     scale = np.abs(H).max()
     for l in range(p):
         r = np.abs(Z[l].T @ H[l] @ Z[(l + 1) % p] - T[l]).max()

@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from periodicschurdecompositions_jl_tpu.ops.hessenberg import phessenberg_core
+from periodicschurdecompositions_jax.ops.hessenberg import phessenberg_core
 
 
 def _random_cycle(rng, p, n, dtype):

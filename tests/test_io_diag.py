@@ -2,10 +2,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from periodicschurdecompositions_jl_tpu.models.drivers import pschur
-from periodicschurdecompositions_jl_tpu.utils.io import (
+from periodicschurdecompositions_jax.models.drivers import pschur
+from periodicschurdecompositions_jax.utils.io import (
     load_decomposition, save_decomposition)
-from periodicschurdecompositions_jl_tpu.diagnostics import FacChecker
+from periodicschurdecompositions_jax.diagnostics import FacChecker
 
 
 def test_save_load_roundtrip(rng, tmp_path):
@@ -47,7 +47,7 @@ def test_krylov_checkpoint_resume(rng, tmp_path):
     """An interrupted partial_pschur resumes from its checkpoint and lands
     on the SAME result as an uninterrupted run (deterministic loop + saved
     RNG state)."""
-    from periodicschurdecompositions_jl_tpu import partial_pschur
+    from periodicschurdecompositions_jax import partial_pschur
 
     p, n = 3, 40
     A = jnp.asarray(rng.standard_normal((p, n, n)))

@@ -4,10 +4,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from periodicschurdecompositions_jl_tpu.ops import rotations as rot
-from periodicschurdecompositions_jl_tpu.ops import householder as hh
-from periodicschurdecompositions_jl_tpu.ops.lanv2 import lanv2
-from periodicschurdecompositions_jl_tpu.utils.safeprod import safeprod_signed
+from periodicschurdecompositions_jax.ops import rotations as rot
+from periodicschurdecompositions_jax.ops import householder as hh
+from periodicschurdecompositions_jax.ops.lanv2 import lanv2
+from periodicschurdecompositions_jax.utils.safeprod import safeprod_signed
 
 
 EPS = np.finfo(np.float64).eps

@@ -3,7 +3,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from periodicschurdecompositions_jl_tpu.models.krylov import partial_pschur
+from periodicschurdecompositions_jax.models.krylov import partial_pschur
 
 
 def mkmats(rng, p, n, xpnd=1.25, cplx=False):
@@ -180,7 +180,7 @@ def test_direct_residuals_match_trial_probe(rng):
     reference's trial-reorder probe: exactly for 1x1 candidates, within
     sqrt(2) (+ rounding headroom) for conjugate pairs (projection 2-norm
     vs basis-dependent max-|entry|)."""
-    from periodicschurdecompositions_jl_tpu.models.krylov import (
+    from periodicschurdecompositions_jax.models.krylov import (
         _residual_trial, _residuals, _small_pschur)
 
     for dtype in (np.float64, np.complex128):

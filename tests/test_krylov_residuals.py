@@ -1,16 +1,16 @@
-"""Fast Sylvester residual path vs the trial-reorder probe (VERDICT r3
-weak #7): the `_invariant_basis_at1` shortcut replaces the reference's
-per-candidate trial ``ordschur`` (src/krylov.jl:833-919); on clustered
-spectra — where the cyclic Sylvester levels go near-singular — the two
-must agree (or the fast path must fall back), and the fast path must
-never report an optimistically SMALL residual (the mis-lock hazard).
+"""Fast Sylvester residual path vs the trial-reorder probe: the
+`_invariant_basis_at1` shortcut replaces the reference's per-candidate
+trial ``ordschur`` (src/krylov.jl:833-919); on clustered spectra — where
+the cyclic Sylvester levels go near-singular — the two must agree (or the
+fast path must fall back), and the fast path must never report an
+optimistically SMALL residual (the mis-lock hazard).
 """
 import numpy as np
 import pytest
 
-from periodicschurdecompositions_jl_tpu.models.krylov import (
+from periodicschurdecompositions_jax.models.krylov import (
     _residual_trial, _residuals)
-from periodicschurdecompositions_jl_tpu.types import PeriodicSchur
+from periodicschurdecompositions_jax.types import PeriodicSchur
 
 
 def _planted_ps(rng, p, k, diag0):

@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from periodicschurdecompositions_jl_tpu import native
+from periodicschurdecompositions_jax import native
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native host library unavailable")
@@ -50,7 +50,7 @@ def test_native_hessenberg():
 def test_native_matches_jax_core():
     """Same decomposition contract as the JAX pipeline (not bitwise)."""
     import jax.numpy as jnp
-    from periodicschurdecompositions_jl_tpu.models.drivers import pschur
+    from periodicschurdecompositions_jax.models.drivers import pschur
     p, n = 3, 12
     rng = np.random.default_rng(9)
     A = rng.standard_normal((p, n, n))
@@ -69,8 +69,8 @@ def test_native_pqz_complex_vs_jitted(rng):
     rather than lie."""
     import jax.numpy as jnp
 
-    from periodicschurdecompositions_jl_tpu import native
-    from periodicschurdecompositions_jl_tpu.ops.pqz_complex import (
+    from periodicschurdecompositions_jax import native
+    from periodicschurdecompositions_jax.ops.pqz_complex import (
         pqz_complex_core)
     if not native.available():
         import pytest

@@ -10,8 +10,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from periodicschurdecompositions_jl_tpu import native
-from periodicschurdecompositions_jl_tpu.ops.hessenberg import (
+from periodicschurdecompositions_jax import native
+from periodicschurdecompositions_jax.ops.hessenberg import (
     phessenberg_signed_core)
 
 pytestmark = pytest.mark.skipif(not native.available(),
@@ -60,7 +60,7 @@ def test_native_rg_decomposition(p, n, S, seed):
 
 
 def test_native_rg_eigvals_vs_jitted():
-    from periodicschurdecompositions_jl_tpu.ops.pqz_real import (
+    from periodicschurdecompositions_jax.ops.pqz_real import (
         pqz_real_gen_core)
     p, n, S = 4, 12, (True, False, True, False)
     Hn = _mk_window(p, n, S, 17)
@@ -89,7 +89,7 @@ def test_native_rg_declines_singular_window():
 
 def test_window_rgpsd_native_route():
     # the AED plumbing returns the native result for a clean window
-    from periodicschurdecompositions_jl_tpu.ops.aed import _window_rgpsd
+    from periodicschurdecompositions_jax.ops.aed import _window_rgpsd
     p, n, S = 4, 16, (True, False, True, False)
     Hn = _mk_window(p, n, S, 29)
     out = _window_rgpsd(Hn, S)

@@ -3,9 +3,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from periodicschurdecompositions_jl_tpu.models.drivers import pschur
-from periodicschurdecompositions_jl_tpu.models.ordschur import ordschur
-from periodicschurdecompositions_jl_tpu.diagnostics import check_psd
+from periodicschurdecompositions_jax.models.drivers import pschur
+from periodicschurdecompositions_jax.models.ordschur import ordschur
+from periodicschurdecompositions_jax.diagnostics import check_psd
 
 EPS = np.finfo(np.float64).eps
 
@@ -140,7 +140,7 @@ def mkrps(rng, n, p, jcs, nnfac=1e-2):
     """Synthetic decomposition with conjugate pairs at 0-based positions
     ``jcs`` (each j in jcs pairs rows (j-1, j)).  Returns (P, A) in right
     orientation, schurindex 0."""
-    from periodicschurdecompositions_jl_tpu.types import PeriodicSchur
+    from periodicschurdecompositions_jax.types import PeriodicSchur
     T = np.zeros((p, n, n))
     T[0] = np.triu(nnfac * rng.random((n, n)))
     for l in range(1, p):
@@ -210,7 +210,7 @@ class TestMkrpsFixture:
     def test_arbitrary_schurindex(self, rng, shift):
         """Any schurindex is normalized via cyclic relabeling (reference
         handles arbitrary indices, src/utils.jl:6-85)."""
-        from periodicschurdecompositions_jl_tpu.utils.circshift import \
+        from periodicschurdecompositions_jax.utils.circshift import \
             circshift_psd
         P, A = mkrps(rng, 8, 3, jcs=(3,))
         Ps = circshift_psd(P, shift)
@@ -226,7 +226,7 @@ class TestMkrpsFixture:
         """A swap across (numerically) identical eigenvalues with strong
         coupling must be rejected, not silently corrupted (reference
         src/sylswap.jl weak/strong tests -> IllConditionedException)."""
-        from periodicschurdecompositions_jl_tpu.types import (
+        from periodicschurdecompositions_jax.types import (
             IllConditionedException, PeriodicSchur)
         n, p = 4, 2
         T = np.zeros((p, n, n))
@@ -258,9 +258,9 @@ def mkrgps(rng, n, p, jcs, S, nnfac=1e-2):
     positions ``jcs`` (each j pairs rows (j-1, j)).  Inverted factors get
     diagonal 1/mu so every factor contributes mu to the signed product
     (same grading as mkrps).  Returns (P, A)."""
-    from periodicschurdecompositions_jl_tpu.types import \
+    from periodicschurdecompositions_jax.types import \
         GeneralizedPeriodicSchur
-    from periodicschurdecompositions_jl_tpu.models.ordschur import \
+    from periodicschurdecompositions_jax.models.ordschur import \
         _update_values
     T = np.zeros((p, n, n))
     for l in range(p):
@@ -336,9 +336,9 @@ class TestIterative2x2:
 
     @pytest.mark.parametrize("S", [(True,) * 4, (True, False, True, False)])
     def test_matches_oneshot(self, rng, S):
-        from periodicschurdecompositions_jl_tpu.ops.reorder_np import \
+        from periodicschurdecompositions_jax.ops.reorder_np import \
             rpeigvals2x2_np
-        from periodicschurdecompositions_jl_tpu.models.ordschur import \
+        from periodicschurdecompositions_jax.models.ordschur import \
             _eig2x2_prod_np
         for trial in range(8):
             W = [np.triu(rng.standard_normal((2, 2))) +
@@ -358,7 +358,7 @@ class TestIterative2x2:
                 assert err < 1e-10 * max(abs(w), 1e-30), (trial, got, want)
 
     def test_ordschur_with_iterative_cfg(self, rng):
-        from periodicschurdecompositions_jl_tpu.config import AlgoConfig
+        from periodicschurdecompositions_jax.config import AlgoConfig
         P, A = mkrps(rng, 8, 3, jcs=(3,))
         select = [False, False, False, True, False, True, False, False]
         P2 = ordschur(P, select, cfg=AlgoConfig(iterative_2x2=True))
@@ -375,7 +375,7 @@ def test_rpeigvals2x2_complex_inverted(rng):
     """Iterative 2x2 eigensolver on COMPLEX cycles with inverted factors:
     the RQ stage carried a spurious conjugation that silently corrupted
     the eigenvalues (converged=True with O(1) errors)."""
-    from periodicschurdecompositions_jl_tpu.ops.reorder_np import (
+    from periodicschurdecompositions_jax.ops.reorder_np import (
         rpeigvals2x2_np)
     S = (True, False, True)
     for trial in range(10):
@@ -399,9 +399,9 @@ def test_ill_conditioned_swap_rejects_not_corrupts(rng):
     """A swap whose Sylvester solution overflows must be REJECTED (False /
     IllConditionedException), never accepted with NaN transforms and never
     escape as a raw OverflowError."""
-    from periodicschurdecompositions_jl_tpu.ops.reorder_np import (
+    from periodicschurdecompositions_jax.ops.reorder_np import (
         swapadj1x1)
-    from periodicschurdecompositions_jl_tpu.types import (
+    from periodicschurdecompositions_jax.types import (
         IllConditionedException)
     k, n = 3, 4
     T = [np.triu(rng.standard_normal((n, n))) for _ in range(k)]

@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from periodicschurdecompositions_jl_tpu.parallel.krylov_ops import (
+from periodicschurdecompositions_jax.parallel.krylov_ops import (
     sharded_dense_ops)
-from periodicschurdecompositions_jl_tpu.parallel.mesh import make_mesh
-from periodicschurdecompositions_jl_tpu.models.krylov import partial_pschur
+from periodicschurdecompositions_jax.parallel.mesh import make_mesh
+from periodicschurdecompositions_jax.models.krylov import partial_pschur
 
 
 @pytest.mark.skipif(len(jax.devices("cpu")) < 8,
@@ -55,7 +55,7 @@ def test_device_resident_partial_pschur(rng):
     matvec — the Arnoldi basis lives on the mesh and matvec+CGS run as one
     jitted program.  Must reproduce the dense run's Ritz values and the
     partial-decomposition residual."""
-    from periodicschurdecompositions_jl_tpu.parallel.krylov_ops import (
+    from periodicschurdecompositions_jax.parallel.krylov_ops import (
         ShardedCycleOps)
     mesh = make_mesh(8, names=("rows",))
     p, n = 2, 96

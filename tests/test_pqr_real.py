@@ -8,8 +8,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from periodicschurdecompositions_jl_tpu.models.drivers import pschur
-from periodicschurdecompositions_jl_tpu.diagnostics import check_psd
+from periodicschurdecompositions_jax.models.drivers import pschur
+from periodicschurdecompositions_jax.diagnostics import check_psd
 
 EPS = np.finfo(np.float64).eps
 

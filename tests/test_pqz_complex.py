@@ -8,8 +8,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from periodicschurdecompositions_jl_tpu.ops.hessenberg import phessenberg_core
-from periodicschurdecompositions_jl_tpu.ops.pqz_complex import pqz_complex_core
+from periodicschurdecompositions_jax.ops.hessenberg import phessenberg_core
+from periodicschurdecompositions_jax.ops.pqz_complex import pqz_complex_core
 
 EPS = np.finfo(np.float64).eps
 
@@ -33,7 +33,7 @@ def run_and_check(A, S, check_vals=True, vals_tol=1000, res_tol=100):
     if all(S):
         H, Q = phessenberg_core(jnp.asarray(A))
     else:
-        from periodicschurdecompositions_jl_tpu.ops.hessenberg import (
+        from periodicschurdecompositions_jax.ops.hessenberg import (
             phessenberg_signed_core)
         H, Q = phessenberg_signed_core(jnp.asarray(A), S)
     T, Z, al, be, sc, ok = pqz_complex_core(H, S, Z=Q)

@@ -1,7 +1,7 @@
 """Split-complex (re, im pair) pipeline vs the complex128 core.
 
-The split core (ops/pqz_complex_split.py) is the TPU-executable complex
-path; on the exact-f64 CPU test backend it must reproduce the complex128
+The split core (ops/pqz_complex_split.py) runs the complex QZ iteration on
+(re, im) float64 pairs; it must reproduce the complex128
 core's contracts: reconstruction, unitarity, triangularity, eigenvalues vs
 the explicit product (SURVEY §4 oracles), planted singular factors.
 """
@@ -9,10 +9,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from periodicschurdecompositions_jl_tpu.ops.cxkern import CX, givens_cx
-from periodicschurdecompositions_jl_tpu.ops.pqz_complex_split import (
+from periodicschurdecompositions_jax.ops.cxkern import CX, givens_cx
+from periodicschurdecompositions_jax.ops.pqz_complex_split import (
     phessenberg_core_split, pqz_complex_core_split)
-from periodicschurdecompositions_jl_tpu.ops.hessenberg import (
+from periodicschurdecompositions_jax.ops.hessenberg import (
     phessenberg_core, phessenberg_signed_core)
 
 EPS = np.finfo(np.float64).eps
@@ -155,7 +155,7 @@ def test_split_inverted_hole(rng):
 
 
 def test_givens_cx_matches_complex(rng):
-    from periodicschurdecompositions_jl_tpu.ops.rotations import givens_complex
+    from periodicschurdecompositions_jax.ops.rotations import givens_complex
     f = rng.standard_normal(50) + 1j * rng.standard_normal(50)
     g = rng.standard_normal(50) + 1j * rng.standard_normal(50)
     g[7] = 0.0
@@ -169,7 +169,7 @@ def test_givens_cx_matches_complex(rng):
 
 
 def test_driver_split_backend(rng):
-    import periodicschurdecompositions_jl_tpu as psd
+    import periodicschurdecompositions_jax as psd
     p, n = 2, 7
     A = rng.standard_normal((p, n, n)) + 1j * rng.standard_normal((p, n, n))
     P1 = psd.pschur(jnp.asarray(A), "R", backend="complex")

@@ -1,12 +1,12 @@
 """ops/smallschur: fixed-budget eigenvalues of small Hessenberg matrices
-(the multishift shift engine for the multi-bulge ds sweeps)."""
+(the shift engine for a small-bulge multishift sweep)."""
 import numpy as np
 import pytest
 
 import jax
 import jax.numpy as jnp
 
-from periodicschurdecompositions_jl_tpu.ops.smallschur import hess_eigs_small
+from periodicschurdecompositions_jax.ops.smallschur import hess_eigs_small
 
 
 @pytest.mark.parametrize("M", [2, 4, 6, 8])

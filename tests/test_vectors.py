@@ -3,8 +3,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from periodicschurdecompositions_jl_tpu.models.drivers import pschur
-from periodicschurdecompositions_jl_tpu.models.vectors import eigvecs
+from periodicschurdecompositions_jax.models.drivers import pschur
+from periodicschurdecompositions_jax.models.vectors import eigvecs
 
 
 def ev_check(As, Vs, lams, left, tol=1e-7):
@@ -96,9 +96,9 @@ def test_eigvecs_unshifted(rng):
 def test_graded_cycle_reorder_eigvecs(rng):
     """Exponentially-split p=20 cycle (reference testfuncs.jl:412-421)
     through ordschur + eigvecs: exercises the scaled 2x2 product eigenvalue
-    path on severely graded data (VERDICT round-1 item 8)."""
-    from periodicschurdecompositions_jl_tpu.models.ordschur import ordschur
-    from periodicschurdecompositions_jl_tpu.diagnostics import check_psd
+    path on severely graded data."""
+    from periodicschurdecompositions_jax.models.ordschur import ordschur
+    from periodicschurdecompositions_jax.diagnostics import check_psd
     fac = 0.1
     p = 20
     A1 = np.array([[9, 4, 1, 4, 3, 4], [6, 8, 2, 4, 0, 2],
@@ -133,7 +133,7 @@ def test_graded_cycle_reorder_eigvecs(rng):
 def test_eigvecs_partial(rng):
     """PartialPeriodicSchur dispatch + Ritz-basis lift (reference
     src/krylov.jl:996-1022) — previously untested."""
-    from periodicschurdecompositions_jl_tpu.models.krylov import (
+    from periodicschurdecompositions_jax.models.krylov import (
         partial_pschur)
     p, n = 2, 24
     A = rng.standard_normal((p, n, n))
@@ -151,7 +151,7 @@ def test_eigvecs_unsplit_real_block(rng):
     """An UNSPLIT 2x2 block with two real (distinct) product eigenvalues:
     structural widening + the separate per-eigenvalue 2x2 solves (the old
     imag-based gate returned non-eigenvectors silently)."""
-    from periodicschurdecompositions_jl_tpu.types import PeriodicSchur
+    from periodicschurdecompositions_jax.types import PeriodicSchur
     p, n = 2, 5
     T = np.stack([np.triu(0.05 * rng.random((n, n))) + np.diag(
         [1.0, 1.0, 3.0, 5.0, 7.0]) for _ in range(p)])
